@@ -1,9 +1,9 @@
-# Build system for convolutionalencdec_tpu (the reference's C14 analogue,
+# Build system for convolutionalencdec (the reference's C14 analogue,
 # but one top-level entry instead of four per-exe Makefiles).
 
 CXX ?= g++
 CXXFLAGS ?= -O2 -std=c++17 -fPIC
-NATIVE_DIR := convolutionalencdec_tpu/native
+NATIVE_DIR := convolutionalencdec/native
 
 .PHONY: all native test bench ber clean
 
@@ -24,7 +24,7 @@ bench:
 	python bench.py
 
 ber:
-	python -c "from convolutionalencdec_tpu.harness import run_reference_ber_test as r; import sys; sys.exit(0 if all(p.passed for p in r()) else 1)"
+	python -c "from convolutionalencdec.harness import run_reference_ber_test as r; import sys; sys.exit(0 if all(p.passed for p in r()) else 1)"
 
 clean:
 	rm -f $(NATIVE_DIR)/libfec_oracle.so $(NATIVE_DIR)/libturbo_oracle.so

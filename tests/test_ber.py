@@ -3,14 +3,14 @@
 The full reference run is 3 x 10,000 x 2048-bit packets with a 10%
 relative-error gate (berTestK7.c:9-15).  CI runs a reduced packet count at
 the two low-SNR points (where the statistics converge fastest) with a
-looser gate; the full-scale run lives in the TPU bench/verify flow.
+looser gate; the full-scale run is `harness.run_reference_ber_test()`.
 """
 
 import numpy as np
 import pytest
 
-from convolutionalencdec_tpu import NASA_K7
-from convolutionalencdec_tpu.harness import BER_EXPECTED_K7, ber_point
+from convolutionalencdec import NASA_K7
+from convolutionalencdec.harness import BER_EXPECTED_K7, ber_point
 
 
 @pytest.mark.parametrize("snr_db,p,expected", BER_EXPECTED_K7[:2],
@@ -23,9 +23,8 @@ def test_ber_matches_matlab_expectation(snr_db, p, expected):
     assert r.measured_uncoded_ber == pytest.approx(p, rel=0.05)
     # The reference's own 10% relative-error gate (berTestK7.c:168-172)
     # at 8 Mbit/point.  The fixed seed makes the measurement
-    # deterministic (verified bit-identical on the CPU mesh and the
-    # TPU); 8 Mbit keeps the sampling spread ~3% at -4 dB so the gate
-    # holds with margin even if a JAX upgrade redraws the PRNG stream.
-    # The -3 dB point needs ~60 Mbit for converged statistics and stays
-    # in the TPU sweep's 30k-packet run (scripts/tpu_sweep.py full_ber).
+    # deterministic; 8 Mbit keeps the sampling spread ~3% at -4 dB so the
+    # gate holds with margin even if a JAX upgrade redraws the PRNG
+    # stream.  The -3 dB point needs ~60 Mbit for converged statistics
+    # and stays in the full-scale `run_reference_ber_test()`.
     assert r.measured_coded_ber == pytest.approx(expected, rel=0.10), r

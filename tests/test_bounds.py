@@ -6,9 +6,9 @@ anchoring role the reference's MATLAB distspec/bercoding pair plays
 import numpy as np
 import pytest
 
-from convolutionalencdec_tpu.harness.bounds import (
+from convolutionalencdec.harness.bounds import (
     bound_curve, distance_spectrum, union_bound_ber)
-from convolutionalencdec_tpu.params import (
+from convolutionalencdec.params import (
     NASA_K7, REF_K7, TOY_K3, CodeSpec)
 
 
@@ -36,7 +36,7 @@ def _brute_min_weight(spec, max_len=10):
     """Min Hamming weight over all nonzero terminated codewords —
     equals dfree for a non-catastrophic code once max_len covers the
     shortest error event."""
-    from convolutionalencdec_tpu.ops.encode import encode_bits_np
+    from convolutionalencdec.ops.encode import encode_bits_np
     best = None
     for m in range(1, max_len + 1):
         for msg in range(1, 1 << m):
@@ -78,7 +78,7 @@ def _brute_spectrum(spec, max_steps):
     input sequence of <= max_steps symbols starting nonzero, keep paths
     that first return to state 0 exactly at the end, histogram
     (distance -> count, total input weight)."""
-    from convolutionalencdec_tpu.ops.encode import encode_one_input
+    from convolutionalencdec.ops.encode import encode_one_input
     import collections
     a = collections.Counter()
     c = collections.Counter()

@@ -5,12 +5,12 @@ convEncode.h:36-37)."""
 import numpy as np
 import pytest
 
-from convolutionalencdec_tpu import (
+from convolutionalencdec import (
     NASA_K7, encode_bits, encode_bytes, viterbi_decode,
     viterbi_decode_bytes,
 )
-from convolutionalencdec_tpu.params import CodeSpec
-from convolutionalencdec_tpu.ops.bits import pack_bits_np, unpack_bits_np
+from convolutionalencdec.params import CodeSpec
+from convolutionalencdec.ops.bits import pack_bits_np, unpack_bits_np
 
 #: k=3 rate-3/4 code: 8 % k != 0, so decoded symbols straddle byte
 #: boundaries (the reference's spillover case).
@@ -54,8 +54,8 @@ def test_streaming_decode_bytes_carry_k3():
     """Chunked byte-granular streaming with k=3: partial bytes carry
     across chunk seams (remainingUncoded's decode-side twin) and the
     total equals the one-shot byte decode."""
-    from convolutionalencdec_tpu.ops.streaming import StreamingDecoder
-    from convolutionalencdec_tpu.ops.viterbi import viterbi_decode_stream
+    from convolutionalencdec.ops.streaming import StreamingDecoder
+    from convolutionalencdec.ops.viterbi import viterbi_decode_stream
     spec = K3_SPILL
     rng = np.random.default_rng(6)
     L = 120                             # 40 symbols, 15 bytes
@@ -82,15 +82,14 @@ def test_streaming_decode_bytes_carry_k3():
 
 
 def test_streaming_decode_bytes_batch_k7():
-    from convolutionalencdec_tpu.ops.streaming import StreamingDecoderBatch
-    from convolutionalencdec_tpu.ops.viterbi import viterbi_decode_stream
+    from convolutionalencdec.ops.streaming import StreamingDecoderBatch
+    from convolutionalencdec.ops.viterbi import viterbi_decode_stream
     spec = NASA_K7
     rng = np.random.default_rng(7)
     B, L = 4, 250
     msgs = rng.integers(0, 2, (B, L), dtype=np.uint8)
     coded = np.asarray(encode_bits(spec, msgs)[0])
-    dec = StreamingDecoderBatch(spec, batch=B, use_kernel=True,
-                                interpret=True)
+    dec = StreamingDecoderBatch(spec, batch=B)
     a = dec.decode_bytes(coded[:, :96])
     b = dec.decode_bytes(coded[:, 96:], last=True)
     got = np.concatenate([a, b], axis=1)
@@ -101,10 +100,10 @@ def test_streaming_decode_bytes_batch_k7():
 
 
 def test_decode_batch_bytes_swar_fast_path():
-    """The SWAR byte fast path (MSb-first traceback emit) must equal
+    """The core's byte emit (MSb-first from the traceback) must equal
     pack_bits of the bit decode, including the zero-padded partial
     trailing byte."""
-    from convolutionalencdec_tpu.kernels import (
+    from convolutionalencdec.kernels import (
         viterbi_decode_batch, viterbi_decode_batch_bytes)
     rng = np.random.default_rng(9)
     B, L = 3, 93                        # L % 8 == 5: partial tail
@@ -124,9 +123,9 @@ def test_decode_batch_bytes_swar_fast_path():
 
 @pytest.mark.parametrize("qmax", [7, 31])
 def test_decode_batch_soft_bytes_fast_paths(qmax):
-    """Soft byte fast paths (SWAR-8 at qmax=7, SWAR-16 at qmax=31) must
-    equal pack_bits of the soft bit decode, incl. the partial tail."""
-    from convolutionalencdec_tpu.kernels import (
+    """Soft byte emit (LLR magnitudes up to 7 or 31) must equal
+    pack_bits of the soft bit decode, incl. the partial tail."""
+    from convolutionalencdec.kernels import (
         viterbi_decode_batch_soft, viterbi_decode_batch_soft_bytes)
     rng = np.random.default_rng(11)
     B, L = 3, 93                        # L % 8 == 5: partial tail
@@ -139,9 +138,9 @@ def test_decode_batch_soft_bytes_fast_paths(qmax):
     flip = rng.random(q.shape) < 0.04
     q = np.where(flip, -q, q)
     got = np.asarray(viterbi_decode_batch_soft_bytes(
-        NASA_K7, q, L, interpret=True, qmax=qmax))
+        NASA_K7, q, L, interpret=True))
     bits = np.asarray(viterbi_decode_batch_soft(
-        NASA_K7, q, L, interpret=True, qmax=qmax))
+        NASA_K7, q, L, interpret=True))
     want = np.stack([pack_bits_np(np.pad(bits[i], (0, (-L) % 8)))
                      for i in range(B)])
     np.testing.assert_array_equal(got, want)
@@ -150,7 +149,7 @@ def test_decode_batch_soft_bytes_fast_paths(qmax):
 
 def test_decode_bytes_matches_oracle():
     """Byte output against the independent C++ oracle."""
-    from convolutionalencdec_tpu.native import oracle_decode
+    from convolutionalencdec.native import oracle_decode
     rng = np.random.default_rng(8)
     data = rng.integers(0, 256, 16, dtype=np.uint8)
     coded = np.asarray(encode_bytes(NASA_K7, data)).copy()

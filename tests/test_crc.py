@@ -1,5 +1,5 @@
 """CRC module: matmul formulation vs the serial LFSR oracle, and the
-CRC-aided tail-biting list decode (scan + kernels, interpret mode).
+CRC-aided tail-biting list decode (the batched scan receivers).
 
 The CRC layer is a beyond-reference extension (the reference counts raw
 bit errors, berTestK7.c:163); the receive chain it enables — soft wrap
@@ -10,8 +10,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import convolutionalencdec_tpu as fec
-from convolutionalencdec_tpu.ops.crc import (
+import convolutionalencdec as fec
+from convolutionalencdec.ops.crc import (
     CRC6_NR, CRC8_LTE, CRC11_NR, CRC16_CCITT, CRC24A, CRC24B, CrcSpec,
     crc_append, crc_bits, crc_check, crc_remainder_np)
 
@@ -97,40 +97,18 @@ def test_scan_list_candidate0_equals_argmin_decode():
         assert any((cands[l] != cands[0]).any() for l in range(1, 4))
 
 
-def test_kernel_list_matches_scan_list():
-    spec = fec.NASA_K7
-    from convolutionalencdec_tpu.kernels.tailbiting import list_wrap
-    from convolutionalencdec_tpu.kernels import (
-        viterbi_decode_batch_tailbiting_list)
-    rng = np.random.default_rng(12)
-    B, L = 8, 120
-    msgs, coded = _tb_crc_setup(rng, spec, CRC16_CCITT, B, L, 0.04)
-    wl = list_wrap(spec, L)
-    cands, mets = viterbi_decode_batch_tailbiting_list(
-        spec, coded, 4, None, True)
-    cands, mets = np.asarray(cands), np.asarray(mets)
-    for i in range(B):
-        sc, sm = fec.viterbi_decode_tailbiting_list(spec, coded[i], 4, wl)
-        assert (cands[i] == np.asarray(sc)).all(), i
-        # Kernel metrics are renormalized (per-channel offset); the
-        # candidate-to-candidate differences must agree exactly.
-        sm = np.asarray(sm)
-        assert (mets[i] - mets[i][0] == sm - sm[0]).all(), i
-
-
 def test_kernel_crc_list_improves_block_errors_hard():
     spec = fec.NASA_K7
     crc = CRC16_CCITT
-    from convolutionalencdec_tpu.kernels import (
-        viterbi_decode_batch_tailbiting,
-        viterbi_decode_batch_tailbiting_crc)
+    import jax
+    from convolutionalencdec.ops.tailbiting import (
+        viterbi_decode_tailbiting_crc)
     rng = np.random.default_rng(13)
     B, L = 64, 96
     msgs, coded = _tb_crc_setup(rng, spec, crc, B, L, 0.09)
-    plain = np.asarray(viterbi_decode_batch_tailbiting(
-        spec, coded, None, True))
-    out, ok, chosen = viterbi_decode_batch_tailbiting_crc(
-        spec, crc, coded, 8, None, True)
+    plain = np.asarray(jax.vmap(
+        lambda c: fec.viterbi_decode_tailbiting(spec, c))(coded))
+    out, ok, chosen = viterbi_decode_tailbiting_crc(spec, crc, coded, 8)
     out, ok, chosen = np.asarray(out), np.asarray(ok), np.asarray(chosen)
     plain_blkerr = (plain != msgs).any(axis=1)
     list_blkerr = (out != msgs).any(axis=1)
@@ -150,40 +128,37 @@ def test_kernel_crc_list_improves_block_errors_hard():
 def test_kernel_crc_soft_matches_hard_on_pseudo_llrs():
     spec = fec.LTE_TBCC_K7
     crc = CRC8_LTE
-    from convolutionalencdec_tpu.kernels import (
-        viterbi_decode_batch_tailbiting_crc,
-        viterbi_decode_batch_tailbiting_crc_soft)
+    from convolutionalencdec.ops.tailbiting import (
+        viterbi_decode_tailbiting_crc, viterbi_decode_tailbiting_crc_soft)
     rng = np.random.default_rng(14)
     B, L = 8, 64
     msgs, coded = _tb_crc_setup(rng, spec, crc, B, L, 0.04)
     # +/-1 pseudo-LLRs reproduce hard Hamming metrics exactly.
     planes = np.stack([(coded >> b) & 1 for b in range(spec.n)], axis=-1)
     qllrs = (1 - 2 * planes.astype(np.int8)).astype(np.int8)
-    hard = viterbi_decode_batch_tailbiting_crc(spec, crc, coded, 4,
-                                               None, True)
-    soft = viterbi_decode_batch_tailbiting_crc_soft(spec, crc, qllrs, 4,
-                                                    None, True, 1)
+    hard = viterbi_decode_tailbiting_crc(spec, crc, coded, 4)
+    soft = viterbi_decode_tailbiting_crc_soft(spec, crc, qllrs, 4)
     for h, s in zip(hard, soft):
         assert (np.asarray(h) == np.asarray(s)).all()
 
 
 def test_list_size_validation():
     spec = fec.NASA_K7
-    from convolutionalencdec_tpu.kernels import (
-        viterbi_decode_batch_tailbiting_list)
+    from convolutionalencdec.ops.tailbiting import (
+        viterbi_decode_tailbiting_crc)
     with pytest.raises(ValueError):
-        viterbi_decode_batch_tailbiting_list(
-            spec, np.zeros((4, 64), np.uint8), 65, None, True)
+        viterbi_decode_tailbiting_crc(
+            spec, CRC16_CCITT, np.zeros((4, 64), np.uint8), 65)
 
 
 def test_bler_curve_tbcc_smoke():
-    # Interpret-mode smoke of the BLER curve runner: list selection can
-    # only improve block errors, false accepts stay rare at short CRC16.
-    from convolutionalencdec_tpu.harness import run_bler_curve_tbcc
-    import convolutionalencdec_tpu as fec
+    # Smoke of the BLER curve runner: list selection can only improve
+    # block errors, false accepts stay rare at short CRC16.
+    from convolutionalencdec.harness import run_bler_curve_tbcc
+    import convolutionalencdec as fec
     pts = run_bler_curve_tbcc(
         fec.NASA_K7, CRC16_CCITT, [2.0], n_packets=64, payload_bits=48,
-        list_size=4, batch=64, interpret=True, verbose=False)
+        list_size=4, batch=64, verbose=False)
     p = pts[0]
     assert p["blocks"] == 64
     assert p["crc_list_bler"] <= p["plain_bler"]
@@ -195,15 +170,15 @@ def test_punctured_tbcc_crc_one_call():
     # and it recovers clean blocks end-to-end at rate 1/2 (keep 4 of 6
     # coded bits of the rate-1/3 mother code, LTE-rate-matching style).
     spec, crc = fec.LTE_TBCC_K7, CRC8_LTE
-    from convolutionalencdec_tpu.ops.puncture import (
+    from convolutionalencdec.ops.puncture import (
         puncture_bits, depuncture_llrs)
     # local n=3 pattern (rows = generators) — distinct from the
     # library's n=2 PUNCTURE_HALF preset.
     PUNCTURE_HALF = ((1, 1), (1, 0), (1, 0))
-    from convolutionalencdec_tpu.ops.channel import segments_to_bits
-    from convolutionalencdec_tpu.kernels import (
-        viterbi_decode_batch_tailbiting_crc_soft,
-        viterbi_decode_batch_tailbiting_punctured_crc)
+    from convolutionalencdec.ops.channel import segments_to_bits
+    from convolutionalencdec.ops.tailbiting import (
+        viterbi_decode_tailbiting_crc_soft,
+        viterbi_decode_tailbiting_punctured_crc)
     rng = np.random.default_rng(21)
     B, L = 8, 96
     payload = rng.integers(0, 2, (B, L - 8), dtype=np.uint8)
@@ -214,11 +189,10 @@ def test_punctured_tbcc_crc_one_call():
     # light noise on the transmitted bits
     flip = rng.random(tx.shape) < 0.01
     rx = (1 - 2 * (tx ^ flip).astype(np.int8)) * 5
-    one = viterbi_decode_batch_tailbiting_punctured_crc(
-        spec, crc, rx, PUNCTURE_HALF, L, 4, None, True)
+    one = viterbi_decode_tailbiting_punctured_crc(
+        spec, crc, rx, PUNCTURE_HALF, L, 4)
     q = np.asarray(depuncture_llrs(rx, PUNCTURE_HALF, L)).reshape(B, L, spec.n)
-    two = viterbi_decode_batch_tailbiting_crc_soft(spec, crc, q, 4,
-                                                   None, True)
+    two = viterbi_decode_tailbiting_crc_soft(spec, crc, q, 4)
     for a, b in zip(one, two):
         assert (np.asarray(a) == np.asarray(b)).all()
     out, ok, _ = one

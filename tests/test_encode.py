@@ -11,12 +11,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from convolutionalencdec_tpu import (
+from convolutionalencdec import (
     CodeSpec, NASA_K7, REF_K7, TOY_K3, K5_23_35, NASA_K7_R13, encode_bits,
     encode_bytes,
 )
-from convolutionalencdec_tpu.ops.bits import pack_bits, unpack_bits
-from convolutionalencdec_tpu.ops.encode import encode_bits_np, encode_one_input
+from convolutionalencdec.ops.bits import pack_bits, unpack_bits
+from convolutionalencdec.ops.encode import encode_bits_np, encode_one_input
 
 ALL_SPECS = [TOY_K3, NASA_K7, REF_K7, K5_23_35, NASA_K7_R13]
 

@@ -1,11 +1,11 @@
 """Randomized-CodeSpec fuzz: implementation equivalence across the three
-independent decoders (scan reference, C++ oracle, Pallas kernels) on
-GENERATED codes, not just the curated presets.
+independent decoders (scan reference, C++ oracle, the decoder core in
+the Pallas interpreter) on GENERATED codes, not just the curated presets.
 
 The reference can only be rebuilt per code (compile-time macros,
 viterbiDecoder.h:8-16); here CodeSpec is runtime, so the dispatch
-surface — butterfly vs generic, fused vs unfused, SWAR vs int32 — must
-hold for arbitrary valid (K, k, g).  Message recovery is NOT asserted
+surface — butterfly core vs generic scan — must hold for arbitrary
+valid (K, k, g).  Message recovery is NOT asserted
 (a random code may be catastrophic or non-invertible); equivalence is
 the contract, as in the reference's generic-vs-butterfly cross-check
 (SURVEY.md §4).
@@ -16,9 +16,9 @@ import pytest
 
 import jax
 
-from convolutionalencdec_tpu import CodeSpec, encode_bits, viterbi_decode
-from convolutionalencdec_tpu.kernels import viterbi_decode_batch
-from convolutionalencdec_tpu.native import oracle_decode, oracle_encode
+from convolutionalencdec import CodeSpec, encode_bits, viterbi_decode
+from convolutionalencdec.kernels import viterbi_decode_batch
+from convolutionalencdec.native import oracle_decode, oracle_encode
 
 
 def _random_specs(seed: int, count: int):
@@ -57,7 +57,7 @@ def test_fuzz_spec_three_way_equivalence(spec):
     flip = rng.random(coded.shape) < 0.05
     coded ^= (flip * rng.integers(1, 1 << spec.n, coded.shape)).astype(
         np.uint8)
-    # decoder: scan == C++ oracle == Pallas kernel, bit for bit
+    # decoder: scan == C++ oracle == decoder core, bit for bit
     scan = np.asarray(jax.vmap(lambda c: viterbi_decode(spec, c))(coded))
     for b in range(B):
         np.testing.assert_array_equal(scan[b], oracle_decode(spec, coded[b]))
@@ -70,10 +70,10 @@ def test_fuzz_spec_bytes_and_ragged(spec):
     """The byte and ragged surfaces must stay consistent with the bit
     decoders on generated codes too (packed MSb-first byte semantics,
     per-channel-length masking)."""
-    from convolutionalencdec_tpu.kernels import (
+    from convolutionalencdec.kernels import (
         viterbi_decode_batch_bytes, viterbi_decode_batch_ragged)
-    from convolutionalencdec_tpu.ops.bits import pack_bits
-    from convolutionalencdec_tpu import viterbi_decode_ragged
+    from convolutionalencdec.ops.bits import pack_bits
+    from convolutionalencdec import viterbi_decode_ragged
     rng = np.random.default_rng(spec.K * 77 + spec.k * 7 + spec.n)
     lens = [32 * spec.k, 16 * spec.k, 29 * spec.k]
     T = [ln // spec.k + spec.S for ln in lens]
@@ -87,7 +87,7 @@ def test_fuzz_spec_bytes_and_ragged(spec):
                   ).astype(np.uint8)
         segs[b, : T[b]] = coded
     seg_lens = np.asarray(T, np.int32)
-    # ragged kernel == per-channel scan
+    # ragged batch entry == per-channel scan
     ref = np.zeros((len(lens), (Tmax - spec.S) * spec.k), np.uint8)
     for b in range(len(lens)):
         bits = np.asarray(viterbi_decode(spec, segs[b, : T[b]]))
@@ -113,10 +113,10 @@ def test_fuzz_spec_tailbiting_list(spec):
     # is exactly the argmin decode of the same left-extended trellis,
     # metrics ascend, shapes match.  (The kernel list path is NS>=64
     # poly-symmetric k=1 only and is cross-checked in tests/test_crc.py.)
-    from convolutionalencdec_tpu import (encode_tailbiting,
+    from convolutionalencdec import (encode_tailbiting,
                                          viterbi_decode_tailbiting,
                                          viterbi_decode_tailbiting_list)
-    from convolutionalencdec_tpu.ops.tailbiting import default_wrap
+    from convolutionalencdec.ops.tailbiting import default_wrap
     rng = np.random.default_rng(spec.K * 77 + spec.k * 7 + spec.n)
     L = 24 * spec.k * 2
     msgs = rng.integers(0, 2, (L,), dtype=np.uint8)

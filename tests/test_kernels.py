@@ -1,4 +1,6 @@
-"""Pallas kernel tests (interpret mode on CPU).
+"""Batched decode entry tests (`kernels.*`, the decoder core in the
+Pallas interpreter where `interpret=True` and the code is a butterfly
+code; the scan decoders otherwise).
 
 The contract: `kernels.viterbi_decode_batch` is bit-identical to the scan
 reference decoder `viterbi_decode` on every input — the generic-vs-
@@ -11,10 +13,10 @@ import pytest
 
 import jax
 
-from convolutionalencdec_tpu import (
+from convolutionalencdec import (
     NASA_K7, REF_K7, TOY_K3, encode_bits, viterbi_decode,
 )
-from convolutionalencdec_tpu.kernels import viterbi_decode_batch
+from convolutionalencdec.kernels import viterbi_decode_batch
 
 
 def _noisy_batch(spec, rng, B, L, flip_p):
@@ -57,8 +59,8 @@ def test_kernel_multi_chunk_and_padding():
 
 def test_soft_kernel_matches_soft_scan():
     """Soft Pallas kernel vs the scan soft decoder, random LLRs."""
-    from convolutionalencdec_tpu.kernels import viterbi_decode_batch_soft
-    from convolutionalencdec_tpu.ops.metrics import viterbi_decode_soft
+    from convolutionalencdec.kernels import viterbi_decode_batch_soft
+    from convolutionalencdec.ops.metrics import viterbi_decode_soft
     spec = NASA_K7
     rng = np.random.default_rng(9)
     B, L = 2, 122
@@ -80,17 +82,11 @@ def test_soft_kernel_matches_soft_scan():
 
 
 def test_soft8_kernel_extreme_llrs_match_scan():
-    """SWAR-8 soft exactness at the metric-field bound: adversarial
-    LLRs pinned to ±qmax (max per-step growth) must still decode
-    bit-identically to the int32 soft scan — the renorm-every-3-steps
-    bound of acs_swar.swar8_soft_supported leaves exactly one unit of
-    headroom for NASA K=7 at qmax=7."""
-    from convolutionalencdec_tpu.kernels import viterbi_decode_batch_soft
-    from convolutionalencdec_tpu.kernels.acs_swar import \
-        swar8_soft_supported
-    from convolutionalencdec_tpu.ops.metrics import viterbi_decode_soft
+    """Adversarial LLRs pinned to ±7 (max per-step metric growth at the
+    default quantizer) decode bit-identically to the int32 soft scan."""
+    from convolutionalencdec.kernels import viterbi_decode_batch_soft
+    from convolutionalencdec.ops.metrics import viterbi_decode_soft
     spec = NASA_K7
-    assert swar8_soft_supported(spec, 7)
     rng = np.random.default_rng(17)
     B, T = 2, 150
     q = rng.choice(np.array([-7, 7], np.int32), size=(B, T, spec.n))
@@ -101,27 +97,22 @@ def test_soft8_kernel_extreme_llrs_match_scan():
 
 
 def test_soft16_path_matches_scan():
-    """A qmax that breaks the 8-bit bound must fall back to the SWAR-16
-    kernels and still match the scan (any-int8 exactness)."""
-    from convolutionalencdec_tpu.kernels import viterbi_decode_batch_soft
-    from convolutionalencdec_tpu.kernels.acs_swar import \
-        swar8_soft_supported
-    from convolutionalencdec_tpu.ops.metrics import viterbi_decode_soft
+    """Wider LLRs (|q| <= 31) match the scan too (any-int8 exactness)."""
+    from convolutionalencdec.kernels import viterbi_decode_batch_soft
+    from convolutionalencdec.ops.metrics import viterbi_decode_soft
     spec = NASA_K7
-    assert not swar8_soft_supported(spec, 31)
     rng = np.random.default_rng(19)
     B, T = 2, 122
     q = rng.integers(-31, 32, size=(B, T, spec.n)).astype(np.int32)
     ref = np.stack([np.asarray(viterbi_decode_soft(spec, q[i]))
                     for i in range(B)])
-    got = np.asarray(viterbi_decode_batch_soft(spec, q, interpret=True,
-                                               qmax=31))
+    got = np.asarray(viterbi_decode_batch_soft(spec, q, interpret=True))
     np.testing.assert_array_equal(got, ref)
 
 
 def test_soft_kernel_hard_llrs_match_hard_kernel():
     spec = NASA_K7
-    from convolutionalencdec_tpu.kernels import viterbi_decode_batch_soft
+    from convolutionalencdec.kernels import viterbi_decode_batch_soft
     rng = np.random.default_rng(13)
     msgs, coded = _noisy_batch(spec, rng, 2, 122, 0.05)
     q = np.zeros((2, coded.shape[1], spec.n), np.int32)
@@ -134,9 +125,9 @@ def test_soft_kernel_hard_llrs_match_hard_kernel():
 
 @pytest.mark.parametrize("spec_name", ["K5_23_35", "K9_561_753"])
 def test_kernel_other_constraint_lengths(spec_name):
-    """The kernel is generic over num_states (16 and 256 states here),
+    """The core is generic over num_states (16 and 256 states here),
     not just the K=7 flagship."""
-    import convolutionalencdec_tpu as fec
+    import convolutionalencdec as fec
     spec = getattr(fec, spec_name)
     rng = np.random.default_rng(19)
     L = 128 - spec.S
@@ -148,10 +139,10 @@ def test_kernel_other_constraint_lengths(spec_name):
 
 def test_generic_kernel_k2_matches_scan():
     """viterbi_decode_batch on a k=2 rate-2/3 code (no butterfly
-    symmetry) dispatches to the generic 2^k-way kernel and matches the
-    scan decoder bit-for-bit (VERDICT #7; viterbiDecoder.c:95-131)."""
-    from convolutionalencdec_tpu.params import CodeSpec
-    from convolutionalencdec_tpu.ops.encode import encode_bits
+    symmetry) dispatches to the generic 2^k-way scan and matches the
+    per-packet decoder bit-for-bit (viterbiDecoder.c:95-131)."""
+    from convolutionalencdec.params import CodeSpec
+    from convolutionalencdec.ops.encode import encode_bits
     spec = CodeSpec(K=3, k=2, g=(0o17, 0o06, 0o13))
     rng = np.random.default_rng(71)
     B, L = 8, 120                       # 60 symbols, T = 62
@@ -167,9 +158,9 @@ def test_generic_kernel_k2_matches_scan():
 
 
 def test_generic_kernel_asymmetric_k1():
-    """A k=1 code WITHOUT poly symmetry also rides the generic kernel."""
-    from convolutionalencdec_tpu.params import CodeSpec
-    from convolutionalencdec_tpu.ops.encode import encode_bits
+    """A k=1 code WITHOUT poly symmetry rides the generic scan."""
+    from convolutionalencdec.params import CodeSpec
+    from convolutionalencdec.ops.encode import encode_bits
     spec = TOY_K3                        # g=(7,6): no poly symmetry
     rng = np.random.default_rng(72)
     B, L = 4, 100
@@ -184,15 +175,12 @@ def test_generic_kernel_asymmetric_k1():
 
 
 def test_k2_fused_kernel_matches_scan():
-    """A k=2 64-state code dispatches to the fused binary-stage kernels
-    (kernels/acs_k2.py) and matches the scan decoder bit-for-bit,
-    including on tie-heavy garbage input (the nested alpha/beta min's
-    key packing must reproduce argmin's lowest-e tie order)."""
-    from convolutionalencdec_tpu.params import CodeSpec
-    from convolutionalencdec_tpu.ops.encode import encode_bits
-    from convolutionalencdec_tpu.kernels.acs_k2 import k2_supported
+    """A k=2 64-state code matches the per-packet scan decoder
+    bit-for-bit through the batch entry, including on tie-heavy garbage
+    input (argmin's lowest-e tie order)."""
+    from convolutionalencdec.params import CodeSpec
+    from convolutionalencdec.ops.encode import encode_bits
     spec = CodeSpec(K=4, k=2, g=(0o64, 0o52, 0o71))
-    assert k2_supported(spec)
     rng = np.random.default_rng(73)
     B, L = 4, 2 * 70
     msgs = rng.integers(0, 2, (B, L), dtype=np.uint8)
@@ -209,49 +197,23 @@ def test_k2_fused_kernel_matches_scan():
 
 
 def test_rate13_soft_rides_swar16():
-    """Rate-1/3 K=7 fails the hard path's 24-step renorm bound but the
-    16-bit soft fields have ample headroom — the SWAR-16 dispatch must
-    gate on the layout predicate, not a hard-metric bound
-    (code-review round 2)."""
-    from convolutionalencdec_tpu.kernels.acs_swar import (
-        _sparse_renorm_ok, swar_layout_supported)
-    from convolutionalencdec_tpu.kernels import viterbi_decode_batch_soft
-    from convolutionalencdec_tpu.ops.metrics import viterbi_decode_soft
-    from convolutionalencdec_tpu.params import NASA_K7_R13
+    """Rate-1/3 K=7 soft decode (n=3 LLR planes) matches the scan."""
+    from convolutionalencdec.kernels import viterbi_decode_batch_soft
+    from convolutionalencdec.ops.metrics import viterbi_decode_soft
+    from convolutionalencdec.params import NASA_K7_R13
     spec = NASA_K7_R13
-    assert swar_layout_supported(spec) and not _sparse_renorm_ok(spec)
     rng = np.random.default_rng(53)
     B, L = 2, 75
     q = rng.integers(-9, 10, (B, L + spec.S, spec.n)).astype(np.int8)
-    got = np.asarray(viterbi_decode_batch_soft(spec, q, interpret=True,
-                                               qmax=9))
+    got = np.asarray(viterbi_decode_batch_soft(spec, q, interpret=True))
     ref = np.asarray(jax.vmap(
         lambda qq: viterbi_decode_soft(spec, qq.astype(np.int32)))(q))
     np.testing.assert_array_equal(got, ref)
 
 
-def test_swar_entry_rejects_underaligned_shapes():
-    """Under-aligned packed inputs would silently return unwritten
-    output (empty or partial grid) — they must raise instead."""
-    import jax.numpy as jnp
-    from convolutionalencdec_tpu.kernels.acs_swar import (
-        LANES, acs_forward_batch_swar)
-    from convolutionalencdec_tpu import NASA_K7
-    with pytest.raises(ValueError, match="padded shapes"):
-        acs_forward_batch_swar(NASA_K7, jnp.zeros((48, LANES // 2),
-                                                  jnp.int32))
-    with pytest.raises(ValueError, match="padded shapes"):
-        acs_forward_batch_swar(NASA_K7, jnp.zeros((47, LANES), jnp.int32))
-
-
 def test_rate13_hard_rides_swar_dense_renorm():
-    """n=3 exceeds the 24-step renorm cadence's guard bound; the dense
-    (every stage-2 step) cadence must engage and stay bit-exact."""
-    from convolutionalencdec_tpu.kernels.acs_swar import (
-        _sparse_renorm_ok, swar_supported)
-    from convolutionalencdec_tpu.params import LTE_TBCC_K7, NASA_K7_R13
-    for spec in (NASA_K7_R13, LTE_TBCC_K7):
-        assert swar_supported(spec) and not _sparse_renorm_ok(spec)
+    """n=3 hard decode (3-bit Hamming metrics) stays bit-exact."""
+    from convolutionalencdec.params import NASA_K7_R13
     spec = NASA_K7_R13
     rng = np.random.default_rng(59)
     msgs, coded = _noisy_batch(spec, rng, 3, 150, 0.05)
@@ -262,24 +224,19 @@ def test_rate13_hard_rides_swar_dense_renorm():
 
 
 def test_ns256_tile_dispatch_soft_and_ragged():
-    """NS >= 256 routes through one-vreg (128-lane) kernel tiles
-    (acs_swar.tile_lanes) while the packed channel mapping stays at the
-    module constant — this exercises the narrow-tile dispatch across
-    the soft-16 and ragged surfaces at NS=256, bit-exact vs the scan
-    references (viterbiDecoder.c:52-234 semantics)."""
-    import convolutionalencdec_tpu as fec
-    from convolutionalencdec_tpu.kernels import (
+    """NS = 256 (four decision words per parity) across the soft and
+    ragged surfaces, bit-exact vs the scan references
+    (viterbiDecoder.c:52-234 semantics)."""
+    import convolutionalencdec as fec
+    from convolutionalencdec.kernels import (
         viterbi_decode_batch_ragged, viterbi_decode_batch_soft)
-    from convolutionalencdec_tpu.kernels.acs_swar import tile_lanes
-    from convolutionalencdec_tpu.ops.metrics import (
-        hard_bits_to_qllrs, viterbi_decode_soft)
-    from convolutionalencdec_tpu.ops.viterbi import viterbi_decode_ragged
+    from convolutionalencdec.ops.metrics import viterbi_decode_soft
+    from convolutionalencdec.ops.viterbi import viterbi_decode_ragged
 
     spec = fec.K9_561_753
-    assert tile_lanes(spec) == 128 and tile_lanes(NASA_K7) == 256
     rng = np.random.default_rng(41)
 
-    # soft-16 (any-LLR) path at NS=256
+    # soft path at NS=256
     msgs, coded = _noisy_batch(spec, rng, 2, 120, 0.04)
     q = np.zeros((2, coded.shape[1], spec.n), np.int32)
     for j in range(spec.n):

@@ -5,9 +5,9 @@ one-call encode/decode chain."""
 import numpy as np
 import pytest
 
-from convolutionalencdec_tpu.ops import lte
-from convolutionalencdec_tpu.ops.crc import CRC24B, crc_check
-from convolutionalencdec_tpu.ops.turbo import RscSpec, turbo_encode_np
+from convolutionalencdec.ops import lte
+from convolutionalencdec.ops.crc import CRC24B, crc_check
+from convolutionalencdec.ops.turbo import RscSpec, turbo_encode_np
 
 RSC = RscSpec()
 
@@ -31,7 +31,7 @@ def test_qpp_table_complete_and_bijective():
 
 
 def test_batch_encoder_matches_oracle():
-    from convolutionalencdec_tpu.ops.turbo import turbo_encode_batch_np
+    from convolutionalencdec.ops.turbo import turbo_encode_batch_np
     rng = np.random.default_rng(7)
     L = 48
     perm = lte.lte_qpp(L)
@@ -142,7 +142,7 @@ def test_rv_chase_combining_recovers():
             _llr(lte.lte_turbo_encode(bits, E, rv=rv)), D, rv=rv))
         for rv in (0, 2))
     fields = lte.turbo_demux_tails(rx)
-    from convolutionalencdec_tpu.ops.turbo import turbo_decode
+    from convolutionalencdec.ops.turbo import turbo_decode
     dec, _ = turbo_decode(RSC, *fields, tuple(lte.lte_qpp(L)), 6)
     np.testing.assert_array_equal(np.asarray(dec), bits)
 
@@ -193,7 +193,7 @@ def test_dlsch_batched_runner_vs_block_loop():
     tx = np.asarray(lte.lte_dlsch_encode(payload, G))
     assert tx.shape == (G,)
     # manual loop through the single-block primitives
-    from convolutionalencdec_tpu.ops.crc import CRC24A, crc_append
+    from convolutionalencdec.ops.crc import CRC24A, crc_append
     bits = np.asarray(crc_append(CRC24A, payload), np.uint8)
     blocks, F = lte.segment_tb(bits)
     Es = lte.dlsch_rate_match_sizes(G, len(blocks))
@@ -247,22 +247,17 @@ def test_segmented_tb_e2e():
 
 
 def test_single_block_decode_honors_use_kernel():
-    """1-D input routes through the same batched code paths, so
-    use_kernel/interpret are honored (code-review round 4): the kernel
-    result for a single block equals the batched kernel row AND the
-    scan result decodes the message."""
+    """1-D input routes through the same batched code path: the
+    single-block result equals the batched row and decodes the
+    message."""
     rng = np.random.default_rng(17)
     L = 40
     bits = rng.integers(0, 2, L, dtype=np.uint8)
     E = 3 * (L + 4)
     tx = np.asarray(lte.lte_turbo_encode(bits, E))
     q = ((1 - 2 * tx.astype(np.int32)) * 6).astype(np.int32)
-    kb, kl = lte.lte_turbo_decode(q, L, n_iters=2, use_kernel=True,
-                                  interpret=True)
-    bb, bl = lte.lte_turbo_decode(q[None], L, n_iters=2, use_kernel=True,
-                                  interpret=True)
+    kb, kl = lte.lte_turbo_decode(q, L, n_iters=2)
+    bb, bl = lte.lte_turbo_decode(q[None], L, n_iters=2)
     np.testing.assert_array_equal(np.asarray(kl), np.asarray(bl)[0])
     np.testing.assert_array_equal(np.asarray(kb), np.asarray(bb)[0])
-    sb, _ = lte.lte_turbo_decode(q, L, n_iters=2, use_kernel=False)
-    np.testing.assert_array_equal(np.asarray(sb), bits)
     np.testing.assert_array_equal(np.asarray(kb), bits)

@@ -6,9 +6,9 @@ emits hard decisions only, viterbiDecoder.c:52-234)."""
 import numpy as np
 import pytest
 
-from convolutionalencdec_tpu import NASA_K7, TOY_K3, encode_bits
-from convolutionalencdec_tpu.params import CodeSpec
-from convolutionalencdec_tpu.ops.maxlogmap import (
+from convolutionalencdec import NASA_K7, TOY_K3, encode_bits
+from convolutionalencdec.params import CodeSpec
+from convolutionalencdec.ops.maxlogmap import (
     maxlogmap_decode, maxlogmap_llrs, maxlogmap_llrs_batch)
 
 K2_RATE23 = CodeSpec(K=3, k=2, g=(0o17, 0o06, 0o13))
@@ -66,7 +66,7 @@ def test_maxlogmap_noisy_agrees_with_viterbi_mostly():
     """Bitwise MAP and sequence ML agree except possibly at near-ties;
     on moderate noise they should coincide on > 99% of bits and both
     recover the message."""
-    from convolutionalencdec_tpu.ops.metrics import viterbi_decode_soft
+    from convolutionalencdec.ops.metrics import viterbi_decode_soft
     rng = np.random.default_rng(11)
     L = 256
     bits = rng.integers(0, 2, L, dtype=np.uint8)
@@ -95,45 +95,6 @@ def test_maxlogmap_batch_shape():
             out[b], np.asarray(maxlogmap_llrs(TOY_K3, q[b])))
 
 
-@pytest.mark.parametrize("spec_name,L", [("NASA_K7", 100),
-                                         ("K9_561_753", 60)])
-def test_maxlogmap_kernel_matches_ops(spec_name, L):
-    """Pallas max-log-MAP kernels (alpha-checkpoint forward + replaying
-    backward) are bit-exact against the scan implementation on every
-    message bit, at T not a multiple of the kernel chunk."""
-    import convolutionalencdec_tpu as fec
-    from convolutionalencdec_tpu.kernels.maxlogmap_pallas import \
-        maxlogmap_llrs_batch_kernel
-    spec = getattr(fec, spec_name)
-    rng = np.random.default_rng(43)
-    B = 3
-    T = L + spec.S
-    q = rng.integers(-7, 8, size=(B, T, spec.n)).astype(np.int8)
-    got = np.asarray(maxlogmap_llrs_batch_kernel(spec, q, interpret=True))
-    want = np.stack([np.asarray(maxlogmap_llrs(spec, q[i].astype(np.int32)))
-                     for i in range(B)])
-    np.testing.assert_array_equal(got[:, :L], want[:, :L])
-    # Termination steps: signs still agree (both saturate toward u=0).
-    assert (got[:, L:] > 0).all() and (want[:, L:] > 0).all()
-
-
-def test_maxlogmap_kernel_unterminated():
-    """terminated=False (free final state) matches the ops scan too."""
-    import convolutionalencdec_tpu as fec
-    from convolutionalencdec_tpu.kernels.maxlogmap_pallas import \
-        maxlogmap_llrs_batch_kernel
-    spec = fec.NASA_K7
-    rng = np.random.default_rng(47)
-    B, T = 2, 70
-    q = rng.integers(-7, 8, size=(B, T, spec.n)).astype(np.int8)
-    got = np.asarray(maxlogmap_llrs_batch_kernel(spec, q, terminated=False,
-                                                 interpret=True))
-    want = np.stack([np.asarray(maxlogmap_llrs(spec, q[i].astype(np.int32),
-                                               terminated=False))
-                     for i in range(B)])
-    np.testing.assert_array_equal(got, want)
-
-
 def test_maxlogmap_erasures_zero_llr():
     """An all-erasure channel (q = 0) gives LLR 0 on every message bit
     (no evidence, and termination bias must not leak into them)."""
@@ -145,13 +106,13 @@ def test_maxlogmap_erasures_zero_llr():
 
 def test_maxlogmap_decode_unterminated_keeps_all_bits():
     """terminated=False has no termination steps to strip: all T*k
-    positions are message bits (code-review round 4)."""
-    from convolutionalencdec_tpu.ops.metrics import hard_bits_to_qllrs
+    positions are message bits."""
+    from convolutionalencdec.ops.metrics import hard_bits_to_qllrs
 
     rng = np.random.default_rng(3)
     msgs = rng.integers(0, 2, 96, dtype=np.uint8)
     coded, _ = encode_bits(NASA_K7, msgs, terminate=False)
-    from convolutionalencdec_tpu.ops.channel import segments_to_bits
+    from convolutionalencdec.ops.channel import segments_to_bits
     q = np.asarray(hard_bits_to_qllrs(
         np.asarray(segments_to_bits(coded, NASA_K7.n)))).reshape(
             -1, NASA_K7.n).astype(np.int8)
@@ -162,22 +123,18 @@ def test_maxlogmap_decode_unterminated_keeps_all_bits():
 
 def test_kernel_rejects_wrong_plane_count():
     import pytest
-    from convolutionalencdec_tpu.kernels import maxlogmap_llrs_batch_kernel
     q = np.zeros((2, 48, 4), np.int8)          # spec.n == 2
     with pytest.raises(ValueError, match="last dim"):
-        maxlogmap_llrs_batch_kernel(NASA_K7, q, interpret=True)
+        maxlogmap_llrs_batch(NASA_K7, q)
 
 
 def test_int8_minus128_saturates_not_wraps():
-    """q = -128 is out of the quantizer contract; the kernels floor it
-    to -127 (saturating metric) instead of wrapping the relu plane."""
-    from convolutionalencdec_tpu.kernels import maxlogmap_llrs_batch_kernel
-    from convolutionalencdec_tpu.ops.maxlogmap import maxlogmap_llrs
+    """q = -128 is out of the quantizer contract; the batched entry
+    floors it to -127 (saturating metric)."""
     rng = np.random.default_rng(3)
     q = rng.integers(-7, 8, (1, 48, 2)).astype(np.int8)
     q[0, 5, 0] = -128
-    got = np.asarray(maxlogmap_llrs_batch_kernel(NASA_K7, q,
-                                                 interpret=True))[0]
+    got = np.asarray(maxlogmap_llrs_batch(NASA_K7, q))[0]
     want = np.asarray(maxlogmap_llrs(
         NASA_K7, np.maximum(q[0].astype(np.int32), -127)))
     L = 48 - NASA_K7.S       # message bits; termination steps saturate

@@ -9,11 +9,11 @@ evidence both are right (the MATLAB-oracle pattern, SURVEY.md §4 item 4).
 import numpy as np
 import pytest
 
-from convolutionalencdec_tpu import (
+from convolutionalencdec import (
     CodeSpec, K5_23_35, NASA_K7, NASA_K7_R13, REF_K7, TOY_K3,
     encode_bits, viterbi_decode,
 )
-from convolutionalencdec_tpu.native import oracle_decode, oracle_encode
+from convolutionalencdec.native import oracle_decode, oracle_encode
 
 SPECS = [TOY_K3, NASA_K7, REF_K7, K5_23_35, NASA_K7_R13,
          CodeSpec(K=3, k=2, g=(0o17, 0o06, 0o13))]

@@ -4,26 +4,26 @@ Ground truth is the per-packet decoder sliced to each channel's own
 length — exactly what a user of the reference would do with one
 `viterbiDecoderHardButterflyk1(..., last=true)` call per packet
 (viterbiDecoderButterflyk1.c:82-260).  The batched ragged paths (scan
-reference and SWAR kernels) must match it bit-for-bit, with zero padding
-past each channel's message bits.
+reference and the decoder core) must match it bit-for-bit, with zero
+padding past each channel's message bits.
 """
 
 import numpy as np
 import pytest
 
-from convolutionalencdec_tpu import (
+from convolutionalencdec import (
     NASA_K7, TOY_K3, encode_bits, viterbi_decode,
     viterbi_decode_ragged, viterbi_decode_ragged_soft, viterbi_decode_soft,
 )
-from convolutionalencdec_tpu.kernels import (
+from convolutionalencdec.kernels import (
     viterbi_decode_batch_bytes_ragged,
     viterbi_decode_batch_ragged,
     viterbi_decode_batch_soft_bytes_ragged,
 )
-from convolutionalencdec_tpu.ops.bits import pack_bits
-from convolutionalencdec_tpu.ops.channel import segments_to_bits
-from convolutionalencdec_tpu.ops.metrics import hard_bits_to_qllrs
-from convolutionalencdec_tpu.params import CodeSpec
+from convolutionalencdec.ops.bits import pack_bits
+from convolutionalencdec.ops.channel import segments_to_bits
+from convolutionalencdec.ops.metrics import hard_bits_to_qllrs
+from convolutionalencdec.params import CodeSpec
 
 K2_RATE23 = CodeSpec(K=3, k=2, g=(0o17, 0o06, 0o13))
 
@@ -97,7 +97,7 @@ def test_kernel_ragged_matches_scan_reference():
 
 def test_kernel_ragged_uniform_equals_batch():
     """All-equal lengths must reproduce the plain batched decoder."""
-    from convolutionalencdec_tpu.kernels import viterbi_decode_batch
+    from convolutionalencdec.kernels import viterbi_decode_batch
     spec = NASA_K7
     rng = np.random.default_rng(13)
     msgs, segs, seg_lens = _ragged_batch(spec, rng, [120] * 3)
@@ -147,18 +147,16 @@ def test_soft_ragged_scan_matches_per_channel():
 
 @pytest.mark.parametrize("qmax", [7, 31], ids=["swar8", "swar16"])
 def test_soft_ragged_kernel_bytes(qmax):
-    """qmax=7 rides the SWAR-8 fields, qmax=31 the SWAR-16 fields."""
+    """Soft ragged bytes through the core, LLR magnitudes 1 and 9."""
     spec = NASA_K7
     rng = np.random.default_rng(23)
     lens = [64, 61, 129, 17]
     msgs, segs, seg_lens = _ragged_batch(spec, rng, lens)
-    # qmax=31 fails the SWAR-8 field bound, forcing the SWAR-16 path;
-    # scale the +/-1 pseudo-LLRs so magnitudes exercise multi-bit fields.
     scale = 1 if qmax == 7 else 9
     q = (scale * _qllrs_from_segs(spec, segs)).astype(np.int8)
     bits = np.asarray(viterbi_decode_ragged_soft(spec, q, seg_lens))
     pad = (-bits.shape[1]) % 8
     ref = np.asarray(pack_bits(np.pad(bits, ((0, 0), (0, pad)))))
     got = np.asarray(viterbi_decode_batch_soft_bytes_ragged(
-        spec, q, seg_lens, interpret=True, qmax=qmax))
+        spec, q, seg_lens, interpret=True))
     np.testing.assert_array_equal(got, ref)

@@ -8,9 +8,9 @@ standard bit mapping the CRC-list TBCC receiver serves in production.
 import numpy as np
 import pytest
 
-import convolutionalencdec_tpu as fec
-from convolutionalencdec_tpu.ops.crc import CRC8_LTE, crc_append
-from convolutionalencdec_tpu.ops.ratematch import (
+import convolutionalencdec as fec
+from convolutionalencdec.ops.crc import CRC8_LTE, crc_append
+from convolutionalencdec.ops.ratematch import (
     NCOLS, SUBBLOCK_PERM, circular_buffer_map, derate_match, rate_match,
     rate_match_segments, ratematch_indices, subblock_interleave_map)
 
@@ -119,25 +119,23 @@ def test_ratematched_tbcc_crc_one_call():
     # End-to-end standard chain: CRC attach -> TBCC encode -> rate match
     # (repetition) -> bipolar LLRs with flips -> one-call receiver.
     spec, crc = fec.LTE_TBCC_K7, CRC8_LTE
-    from convolutionalencdec_tpu.kernels import (
-        viterbi_decode_batch_tailbiting_crc_soft,
-        viterbi_decode_batch_tailbiting_ratematched_crc)
+    from convolutionalencdec.ops.tailbiting import (
+        viterbi_decode_tailbiting_crc_soft,
+        viterbi_decode_tailbiting_ratematched_crc)
     rng = np.random.default_rng(11)
     B, D, E = 8, 48, 200  # E > 3D=144: 56 bits repeated
     payload = rng.integers(0, 2, (B, D - crc.width), dtype=np.uint8)
     msgs = np.asarray(crc_append(crc, payload))
-    from convolutionalencdec_tpu.ops.channel import segments_to_bits
+    from convolutionalencdec.ops.channel import segments_to_bits
     coded = np.asarray(fec.encode_tailbiting(spec, msgs))
     cbits = segments_to_bits(coded, spec.n)  # [B, D*n] step-major
     tx = np.asarray(rate_match(cbits, spec, D, E)).astype(np.uint8)
     flip = rng.random(tx.shape) < 0.02
     rx = ((1 - 2 * (tx ^ flip).astype(np.int8)) * 3).astype(np.int8)
 
-    one = viterbi_decode_batch_tailbiting_ratematched_crc(
-        spec, crc, rx, D, 4, None, True)
+    one = viterbi_decode_tailbiting_ratematched_crc(spec, crc, rx, D, 4)
     q = np.asarray(derate_match(rx, spec, D, qmax=7))
-    two = viterbi_decode_batch_tailbiting_crc_soft(spec, crc, q, 4,
-                                                   None, True)
+    two = viterbi_decode_tailbiting_crc_soft(spec, crc, q, 4)
     for a, b in zip(one, two):
         assert (np.asarray(a) == np.asarray(b)).all()
     out, ok, _ = one

@@ -5,8 +5,8 @@ import pytest
 
 import jax
 
-from convolutionalencdec_tpu import NASA_K7, encode_bits, viterbi_decode
-from convolutionalencdec_tpu.parallel import (
+from convolutionalencdec import NASA_K7, encode_bits, viterbi_decode
+from convolutionalencdec.parallel import (
     decode_sharded, encode_sharded, make_mesh,
 )
 
@@ -56,10 +56,10 @@ def test_sharded_decode_rejects_unshardable():
 
 
 def test_channel_sharded_kernel_decode():
-    """Pallas-kernel decode sharded over all 8 devices (channel axis) is
-    bit-identical to the unsharded kernel decode."""
-    from convolutionalencdec_tpu.parallel import decode_sharded_batch
-    from convolutionalencdec_tpu.kernels import viterbi_decode_batch
+    """Block decode (the core, interpreted) sharded over all 8 devices
+    (channel axis) is bit-identical to the unsharded decode."""
+    from convolutionalencdec.parallel import decode_sharded_batch
+    from convolutionalencdec.kernels import viterbi_decode_batch
     spec = NASA_K7
     rng = np.random.default_rng(31)
     msgs, coded = _noisy(rng, spec, 8, 122, 0.03)
@@ -73,11 +73,11 @@ def test_channel_sharded_kernel_decode():
 @pytest.mark.parametrize("mesh_shape", [(2, 4), (1, 8)],
                          ids=["ch2tb4", "tb8"])
 def test_time_sharded_kernel_decode(mesh_shape):
-    """Kernel-backed time-block decode (overlap-save through the fused
-    Pallas kernels) is bit-identical to the unsharded kernel decoder —
-    the multi-chip long-stream story at kernel speed."""
-    from convolutionalencdec_tpu.parallel import decode_sharded_kernel
-    from convolutionalencdec_tpu.kernels import viterbi_decode_batch
+    """Time-block decode on the core's forward and traceback
+    (overlap-save) is bit-identical to the unsharded block decoder —
+    the multi-device long-stream path."""
+    from convolutionalencdec.parallel import decode_sharded_kernel
+    from convolutionalencdec.kernels import viterbi_decode_batch
     spec = NASA_K7
     rng = np.random.default_rng(47)
     B, L = 4, 1146                     # T = 1152; Tl = 288/144 >= W
@@ -91,19 +91,19 @@ def test_time_sharded_kernel_decode(mesh_shape):
 
 
 def test_time_sharded_kernel_rejects_misaligned():
-    from convolutionalencdec_tpu.parallel import decode_sharded_kernel
+    from convolutionalencdec.parallel import decode_sharded_kernel
     spec = NASA_K7
     mesh = make_mesh(1, 8)
-    coded = np.zeros((4, 1024), np.uint8)   # 1024/8 = 128, not % 48
+    coded = np.zeros((4, 1024), np.uint8)   # 1024/8 = 128 < warmup 144
     with pytest.raises(ValueError):
         decode_sharded_kernel(spec, coded, mesh)
 
 
 def test_turbo_chain_sharded():
     """LTE turbo receive chain channel-sharded over the mesh, bit-exact
-    vs the unsharded batch decode (kernel MAP constituents)."""
-    from convolutionalencdec_tpu.ops import lte
-    from convolutionalencdec_tpu.parallel import turbo_decode_sharded
+    vs the unsharded batch decode."""
+    from convolutionalencdec.ops import lte
+    from convolutionalencdec.parallel import turbo_decode_sharded
     rng = np.random.default_rng(19)
     B, L, E = 16, 40, 132
     msgs = rng.integers(0, 2, (B, L), dtype=np.uint8)
@@ -112,20 +112,19 @@ def test_turbo_chain_sharded():
     flip = rng.random(q.shape) < 0.04
     q = np.where(flip, -q, q)
     mesh = make_mesh(4, 2)
-    got = turbo_decode_sharded(q, L, mesh, n_iters=2, use_kernel=True,
-                               interpret=True)
+    got = turbo_decode_sharded(q, L, mesh, n_iters=2)
     ref, _ = lte.lte_turbo_decode(q, L, n_iters=2)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
 
 
 def test_tbcc_crc_receiver_sharded():
     """CRC-aided TBCC list receiver channel-sharded over the mesh,
-    identical verdicts and bits vs the unsharded kernel path."""
-    from convolutionalencdec_tpu import LTE_TBCC_K7, encode_tailbiting
-    from convolutionalencdec_tpu.kernels import (
-        viterbi_decode_batch_tailbiting_crc_soft)
-    from convolutionalencdec_tpu.ops.crc import CRC16_CCITT, crc_append
-    from convolutionalencdec_tpu.parallel import tbcc_crc_decode_sharded
+    identical verdicts and bits vs the unsharded receiver."""
+    from convolutionalencdec import LTE_TBCC_K7, encode_tailbiting
+    from convolutionalencdec.ops.tailbiting import (
+        viterbi_decode_tailbiting_crc_soft)
+    from convolutionalencdec.ops.crc import CRC16_CCITT, crc_append
+    from convolutionalencdec.parallel import tbcc_crc_decode_sharded
     spec, crc = LTE_TBCC_K7, CRC16_CCITT
     rng = np.random.default_rng(29)
     B, L = 16, 48
@@ -137,10 +136,8 @@ def test_tbcc_crc_receiver_sharded():
     flip = rng.random(q.shape) < 0.03
     q = np.where(flip, -q, q).astype(np.int8)
     mesh = make_mesh(8, 1)
-    got, ok = tbcc_crc_decode_sharded(spec, crc, q, 4, mesh,
-                                      interpret=True)
-    ref, rok, _ = viterbi_decode_batch_tailbiting_crc_soft(
-        spec, crc, q, 4, None, True)
+    got, ok = tbcc_crc_decode_sharded(spec, crc, q, 4, mesh)
+    ref, rok, _ = viterbi_decode_tailbiting_crc_soft(spec, crc, q, 4)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
     np.testing.assert_array_equal(np.asarray(ok), np.asarray(rok))
 
@@ -149,7 +146,7 @@ def test_sharded_decode_rejects_short_local_blocks():
     """Local time blocks shorter than the warm-up must raise instead of
     silently decoding garbage (halos reach only one neighbor)."""
     import pytest
-    from convolutionalencdec_tpu.parallel import decode_sharded, make_mesh
+    from convolutionalencdec.parallel import decode_sharded, make_mesh
     spec = NASA_K7
     mesh = make_mesh(1, 8)
     segs = np.zeros((8, 512), np.uint8)       # Tl = 64 < W = 128

@@ -6,22 +6,22 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from convolutionalencdec_tpu import (
+from convolutionalencdec import (
     CodeSpec, NASA_K7, NASA_K7_R13, TOY_K3, encode_bits, viterbi_decode,
 )
-from convolutionalencdec_tpu.ops.channel import (
+from convolutionalencdec.ops.channel import (
     awgn, bpsk_llr, bpsk_modulate, hard_decision, segments_to_bits,
     bits_to_segments,
 )
-from convolutionalencdec_tpu.ops.metrics import (
+from convolutionalencdec.ops.metrics import (
     hard_bits_to_qllrs, quantize_llrs, soft_step_metrics,
     viterbi_decode_soft, viterbi_forward_butterfly_soft,
 )
-from convolutionalencdec_tpu.ops.puncture import (
+from convolutionalencdec.ops.puncture import (
     PUNCTURE_2_3, PUNCTURE_3_4, depuncture_llrs, puncture_bits,
     punctured_rate, puncture_mask,
 )
-from convolutionalencdec_tpu.ops.viterbi import (
+from convolutionalencdec.ops.viterbi import (
     hard_step_metrics, viterbi_forward, viterbi_forward_butterfly,
 )
 
@@ -143,9 +143,9 @@ def test_quantize_llrs_range_and_sign():
 @pytest.mark.parametrize("pattern", [PUNCTURE_2_3, PUNCTURE_3_4],
                          ids=["r23", "r34"])
 def test_batch_punctured_one_call(pattern):
-    """One-call batched punctured decode == the manual depuncture +
-    soft-scan pipeline, and corrects sparse errors at kernel speed."""
-    from convolutionalencdec_tpu.kernels import (
+    """One-call batched punctured decode (the core, interpreted) == the
+    manual depuncture + soft-scan pipeline, and corrects sparse errors."""
+    from convolutionalencdec.kernels import (
         viterbi_decode_batch_punctured,
         viterbi_decode_batch_punctured_soft)
     spec = NASA_K7
@@ -170,16 +170,15 @@ def test_batch_punctured_one_call(pattern):
         np.testing.assert_array_equal(got[b], msgs[b])
     # soft one-call with the same ±1 LLRs must agree
     got_s = np.asarray(viterbi_decode_batch_punctured_soft(
-        spec, rx_llr.astype(np.int8), pattern, T, interpret=True,
-        qmax=1))
+        spec, rx_llr.astype(np.int8), pattern, T, interpret=True))
     np.testing.assert_array_equal(got_s, got)
 
 
 def test_pattern_row_count_validated():
     import pytest
-    from convolutionalencdec_tpu.ops.puncture import (
+    from convolutionalencdec.ops.puncture import (
         PUNCTURE_2_3, check_pattern_rows, punctured_rate)
-    from convolutionalencdec_tpu.params import LTE_TBCC_K7, NASA_K7
+    from convolutionalencdec.params import LTE_TBCC_K7, NASA_K7
     check_pattern_rows(NASA_K7, PUNCTURE_2_3)          # n=2: fine
     with pytest.raises(ValueError, match="rows"):
         check_pattern_rows(LTE_TBCC_K7, PUNCTURE_2_3)  # n=3: mismatch

@@ -1,9 +1,8 @@
 """Smoke coverage for the speed harness (C10/C11) on the CPU scan
-path: the benches must run end-to-end at tiny scale, return a positive
-rate, and never exceed their unique-execution pool (the round-5
-dedup-proofing contract)."""
+path: the benches must run end-to-end at tiny scale and return a
+positive rate."""
 
-from convolutionalencdec_tpu.harness.speed import (
+from convolutionalencdec.harness.speed import (
     bench_decode, bench_decode_ragged, bench_encode)
 
 

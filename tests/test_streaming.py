@@ -4,10 +4,10 @@ reference's convEnc / viterbiDecoderHard seam (SURVEY.md §5)."""
 import numpy as np
 import pytest
 
-from convolutionalencdec_tpu import (
+from convolutionalencdec import (
     NASA_K7, encode_bits, viterbi_decode_stream,
 )
-from convolutionalencdec_tpu.ops.streaming import (
+from convolutionalencdec.ops.streaming import (
     StreamingDecoder, StreamingEncoder,
 )
 
@@ -56,12 +56,11 @@ def test_streaming_decoder_two_packets():
 
 
 def test_streaming_batch_kernel_matches_scan_stream():
-    """StreamingDecoderBatch (fused register-exchange kernel + scan tail)
-    is bit-identical to per-packet viterbi_decode_stream across ragged
-    chunk boundaries — the reference's streaming emit at kernel speed
-    (viterbiDecoder.c:122-190)."""
-    from convolutionalencdec_tpu.ops.streaming import StreamingDecoderBatch
-    from convolutionalencdec_tpu.ops.viterbi import viterbi_decode_stream
+    """StreamingDecoderBatch is bit-identical to per-packet
+    viterbi_decode_stream across ragged chunk boundaries — the
+    reference's streaming emit, batched (viterbiDecoder.c:122-190)."""
+    from convolutionalencdec.ops.streaming import StreamingDecoderBatch
+    from convolutionalencdec.ops.viterbi import viterbi_decode_stream
     spec = NASA_K7
     rng = np.random.default_rng(23)
     B, L = 8, 250                    # T = 256
@@ -70,9 +69,8 @@ def test_streaming_batch_kernel_matches_scan_stream():
     flip = rng.random(coded.shape) < 0.02
     coded ^= (flip * rng.integers(1, 4, coded.shape)).astype(np.uint8)
 
-    dec = StreamingDecoderBatch(spec, batch=B, use_kernel=True,
-                                interpret=True)
-    # ragged chunks: one kernel-aligned prefix, a ragged middle, the rest
+    dec = StreamingDecoderBatch(spec, batch=B)
+    # ragged chunks
     cuts = [96, 149, coded.shape[1]]
     out, prev = [], 0
     for c in cuts:
@@ -91,7 +89,7 @@ def test_stream_soft_scan_matches_hard_on_pseudo_llrs():
     """viterbi_decode_stream_soft on ±1 pseudo-LLRs must equal the hard
     streaming decoder (the soft cost reduces to Hamming), and scaled
     LLRs must decode the message."""
-    from convolutionalencdec_tpu.ops.viterbi import (
+    from convolutionalencdec.ops.viterbi import (
         viterbi_decode_stream, viterbi_decode_stream_soft)
     spec = NASA_K7
     rng = np.random.default_rng(31)
@@ -111,11 +109,10 @@ def test_stream_soft_scan_matches_hard_on_pseudo_llrs():
 
 
 def test_streaming_batch_soft_kernel_matches_scan_stream():
-    """Soft StreamingDecoderBatch (stream_decode_batch_soft kernel +
-    soft scan tail) is bit-identical to per-packet
+    """Soft StreamingDecoderBatch is bit-identical to per-packet
     viterbi_decode_stream_soft across ragged chunk seams."""
-    from convolutionalencdec_tpu.ops.streaming import StreamingDecoderBatch
-    from convolutionalencdec_tpu.ops.viterbi import viterbi_decode_stream_soft
+    from convolutionalencdec.ops.streaming import StreamingDecoderBatch
+    from convolutionalencdec.ops.viterbi import viterbi_decode_stream_soft
     spec = NASA_K7
     rng = np.random.default_rng(37)
     B, L = 8, 250                    # T = 256
@@ -129,8 +126,7 @@ def test_streaming_batch_soft_kernel_matches_scan_stream():
     q = np.where(flip, -q, q).astype(np.int8)
     q[rng.random(q.shape) < 0.02] = 0          # erasures
 
-    dec = StreamingDecoderBatch(spec, batch=B, use_kernel=True,
-                                interpret=True, soft=True)
+    dec = StreamingDecoderBatch(spec, batch=B, soft=True)
     cuts = [96, 149, coded.shape[1]]
     out, prev = [], 0
     for c in cuts:
@@ -145,8 +141,8 @@ def test_streaming_batch_soft_kernel_matches_scan_stream():
 def test_streaming_decoder_soft_single_channel():
     """Single-channel soft StreamingDecoder across ragged seams equals
     the one-shot soft streaming scan."""
-    from convolutionalencdec_tpu.ops.streaming import StreamingDecoder
-    from convolutionalencdec_tpu.ops.viterbi import viterbi_decode_stream_soft
+    from convolutionalencdec.ops.streaming import StreamingDecoder
+    from convolutionalencdec.ops.viterbi import viterbi_decode_stream_soft
     spec = NASA_K7
     rng = np.random.default_rng(41)
     L = 180
@@ -166,19 +162,18 @@ def test_streaming_decoder_soft_single_channel():
 
 
 def test_streaming_batch_kernel_single_plane_w32():
-    """W <= 32 uses the single-register-plane fast path; still bit-exact
-    vs the scan streaming decoder at the same window."""
-    from convolutionalencdec_tpu.ops.streaming import StreamingDecoderBatch
-    from convolutionalencdec_tpu.ops.viterbi import viterbi_decode_stream
+    """A shorter window (W = 32) stays bit-exact vs the scan streaming
+    decoder at the same window."""
+    from convolutionalencdec.ops.streaming import StreamingDecoderBatch
+    from convolutionalencdec.ops.viterbi import viterbi_decode_stream
     spec = NASA_K7
     rng = np.random.default_rng(29)
-    B, L = 4, 186                     # T = 192 = 4 kernel chunks
+    B, L = 4, 186
     msgs = rng.integers(0, 2, (B, L), dtype=np.uint8)
     coded = np.asarray(encode_bits(spec, msgs)[0]).copy()
     flip = rng.random(coded.shape) < 0.02
     coded ^= (flip * rng.integers(1, 4, coded.shape)).astype(np.uint8)
-    dec = StreamingDecoderBatch(spec, batch=B, traceback_len=32,
-                                use_kernel=True, interpret=True)
+    dec = StreamingDecoderBatch(spec, batch=B, traceback_len=32)
     got = dec.decode(coded, last=True)
     want = np.stack([np.asarray(viterbi_decode_stream(spec, coded[b], 32))
                      for b in range(B)])
@@ -187,7 +182,7 @@ def test_streaming_batch_kernel_single_plane_w32():
 
 def test_stream_traceback_len_must_exceed_s():
     """W <= S would stream decoded termination steps as message bits
-    (the flush window is empty) — reject it (code-review round 2)."""
+    (the flush window is empty) — reject it."""
     segs = np.zeros(64, np.uint8)
     with pytest.raises(ValueError, match="must exceed S"):
         viterbi_decode_stream(NASA_K7, segs,
@@ -200,10 +195,11 @@ def test_stream_traceback_len_must_exceed_s():
 
 def test_block_streaming_matches_one_shot():
     """BlockStreamingDecoderBatch: exact carried-metric chunked decode
-    equals the one-shot block kernel across ragged chunk feeds."""
-    import convolutionalencdec_tpu as fec
-    from convolutionalencdec_tpu.kernels import viterbi_decode_batch
-    from convolutionalencdec_tpu.ops.streaming import (
+    (the core, interpreted) equals the one-shot block decode across
+    ragged chunk feeds."""
+    import convolutionalencdec as fec
+    from convolutionalencdec.kernels import viterbi_decode_batch
+    from convolutionalencdec.ops.streaming import (
         BlockStreamingDecoderBatch)
     spec = fec.NASA_K7
     rng = np.random.default_rng(71)
@@ -229,19 +225,19 @@ def test_block_streaming_matches_one_shot():
 
 
 def test_block_streaming_rejects_non_swar():
-    import convolutionalencdec_tpu as fec
-    from convolutionalencdec_tpu.ops.streaming import (
+    import convolutionalencdec as fec
+    from convolutionalencdec.ops.streaming import (
         BlockStreamingDecoderBatch)
     with pytest.raises(ValueError):
         BlockStreamingDecoderBatch(fec.TOY_K3, batch=4)
 
 
 def test_block_streaming_soft_matches_one_shot():
-    """Soft block streaming (SWAR-8 and SWAR-16 dispatch) equals the
-    one-shot soft block kernel across chunk seams."""
-    import convolutionalencdec_tpu as fec
-    from convolutionalencdec_tpu.kernels import viterbi_decode_batch_soft
-    from convolutionalencdec_tpu.ops.streaming import (
+    """Soft block streaming (LLR magnitudes 7 and 31) equals the
+    one-shot soft block decode across chunk seams."""
+    import convolutionalencdec as fec
+    from convolutionalencdec.kernels import viterbi_decode_batch_soft
+    from convolutionalencdec.ops.streaming import (
         BlockStreamingDecoderBatch)
     rng = np.random.default_rng(73)
     B, L = 4, 400
@@ -252,26 +248,22 @@ def test_block_streaming_soft_matches_one_shot():
         coded ^= (flip * rng.integers(1, 4, coded.shape)).astype(np.uint8)
         planes = np.stack([(coded >> b) & 1 for b in range(spec.n)],
                           axis=-1)
-        q = ((1 - 2 * planes.astype(np.int8)) * min(qmax, 7)).astype(
-            np.int8)
-        want = np.asarray(viterbi_decode_batch_soft(
-            spec, q, None, True, qmax))
+        q = ((1 - 2 * planes.astype(np.int8)) * qmax).astype(np.int8)
+        want = np.asarray(viterbi_decode_batch_soft(spec, q, None, True))
         dec = BlockStreamingDecoderBatch(spec, batch=B, interpret=True,
-                                         soft=True, qmax=qmax)
-        assert dec._mode == ("soft8" if qmax == 7 else "soft16")
+                                         soft=True)
         g1 = np.asarray(dec.decode(q[:, :144]))
         g2 = np.asarray(dec.decode(q[:, 144:250]))
         g3 = np.asarray(dec.decode(q[:, 250:], last=True))
         got = np.concatenate([g1, g2, g3], axis=1)
-        np.testing.assert_array_equal(got, want, err_msg=dec._mode)
+        np.testing.assert_array_equal(got, want, err_msg=str(qmax))
 
 
 def test_block_streaming_rate13_dense_renorm():
-    """n=3 codes use the dense renorm cadence — the carried-metric seam
-    must stay exact there too."""
-    import convolutionalencdec_tpu as fec
-    from convolutionalencdec_tpu.kernels import viterbi_decode_batch
-    from convolutionalencdec_tpu.ops.streaming import (
+    """n=3 codes: the carried-metric seam stays exact there too."""
+    import convolutionalencdec as fec
+    from convolutionalencdec.kernels import viterbi_decode_batch
+    from convolutionalencdec.ops.streaming import (
         BlockStreamingDecoderBatch)
     spec = fec.NASA_K7_R13
     rng = np.random.default_rng(79)
@@ -289,12 +281,11 @@ def test_block_streaming_rate13_dense_renorm():
 
 
 def test_streaming_auto_fallback_non_poly_symmetric():
-    """A valid k=1 NS=64 code WITHOUT poly symmetry must auto-route to
-    the scan path (the register-exchange kernel needs the butterfly
-    layout) instead of crashing mid-decode (code-review round 4)."""
-    import convolutionalencdec_tpu as fec
-    from convolutionalencdec_tpu.ops.streaming import StreamingDecoderBatch
-    from convolutionalencdec_tpu.ops.viterbi import viterbi_decode_stream
+    """A valid k=1 NS=64 code WITHOUT poly symmetry streams through the
+    batched scan without error."""
+    import convolutionalencdec as fec
+    from convolutionalencdec.ops.streaming import StreamingDecoderBatch
+    from convolutionalencdec.ops.viterbi import viterbi_decode_stream
 
     spec = fec.CodeSpec(K=7, k=1, g=(0o134, 0o171))
     assert not spec.has_poly_symmetry
@@ -302,7 +293,6 @@ def test_streaming_auto_fallback_non_poly_symmetric():
     msgs = rng.integers(0, 2, (4, 256), dtype=np.uint8)
     coded = np.asarray(fec.encode_bits(spec, msgs)[0])
     dec = StreamingDecoderBatch(spec, batch=4)
-    assert not dec.use_kernel
     out = np.concatenate(
         [np.asarray(dec.decode(coded[:, :128])),
          np.asarray(dec.decode(coded[:, 128:], last=True))], axis=1)
@@ -313,9 +303,9 @@ def test_streaming_auto_fallback_non_poly_symmetric():
 
 def test_block_streaming_rejects_tiny_lookahead():
     """lookahead <= S would emit termination steps as data and break
-    the final flush — rejected up front (code-review round 4)."""
-    import convolutionalencdec_tpu as fec
-    from convolutionalencdec_tpu.ops.streaming import (
+    the final flush — rejected up front."""
+    import convolutionalencdec as fec
+    from convolutionalencdec.ops.streaming import (
         BlockStreamingDecoderBatch)
     with pytest.raises(ValueError, match="lookahead"):
         BlockStreamingDecoderBatch(fec.NASA_K7, batch=4, lookahead=0)
@@ -348,7 +338,7 @@ def test_streaming_batch_short_packet_and_empty_chunk():
     """Batch twin of the short-packet law, plus: an empty NON-last chunk
     must be a no-op (the scalar class accepts it; the batch class
     crashed on np.concatenate([]))."""
-    from convolutionalencdec_tpu.ops.streaming import StreamingDecoderBatch
+    from convolutionalencdec.ops.streaming import StreamingDecoderBatch
     spec = NASA_K7
     rng = np.random.default_rng(59)
     B, L = 3, 10
@@ -364,7 +354,7 @@ def test_streaming_batch_short_packet_and_empty_chunk():
 
 def test_bsc_segments_preserves_uint8():
     import jax
-    from convolutionalencdec_tpu.ops.channel import bsc_segments
+    from convolutionalencdec.ops.channel import bsc_segments
     segs = np.random.default_rng(0).integers(0, 4, (4, 64), np.uint8)
     out = bsc_segments(jax.random.PRNGKey(0), segs, 2, 0.1)
     assert out.dtype == np.uint8, out.dtype

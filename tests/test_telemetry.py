@@ -1,4 +1,4 @@
-"""Telemetry unit tests: describe, ThroughputMeter, HBM traffic model.
+"""Telemetry unit tests: describe, ThroughputMeter, traffic model.
 
 The traffic model is analytic (SURVEY §5 tracing row); these tests pin
 its invariants — decision traffic is 1 bit/state/step in every block
@@ -9,8 +9,8 @@ the report renders one row per dispatchable mode.
 import pytest
 import re
 
-from convolutionalencdec_tpu.params import NASA_K7, TOY_K3
-from convolutionalencdec_tpu.utils import (ThroughputMeter, describe,
+from convolutionalencdec.params import NASA_K7, TOY_K3
+from convolutionalencdec.utils import (ThroughputMeter, describe,
                                            kernel_traffic, traffic_report)
 
 
@@ -25,7 +25,7 @@ def test_kernel_traffic_decision_bytes():
     B, T = 2048, 2048
     NS = NASA_K7.num_states
     dec = T // 8 * NS * B
-    for mode in ("block", "block_int32", "block_soft", "ragged"):
+    for mode in ("block", "block_soft", "ragged"):
         r = kernel_traffic(NASA_K7, B, T, mode)
         assert r["forward_write_bytes"] >= dec
         assert r["traceback_read_bytes"] >= dec
@@ -48,22 +48,21 @@ def test_kernel_traffic_stream_no_decision_roundtrip():
 def test_kernel_traffic_k_scaling():
     # decoded_bits must scale with k — use a k=2 spec so a dropped k
     # factor actually fails (TOY_K3 has k=1, which can't detect it).
-    from convolutionalencdec_tpu.params import CodeSpec
+    from convolutionalencdec.params import CodeSpec
     k2 = CodeSpec(K=3, k=2, g=(0o17, 0o06, 0o13))
-    r = kernel_traffic(k2, 256, 256, "block_int32")
+    r = kernel_traffic(k2, 256, 256, "block")
     assert r["decoded_bits"] == (256 - k2.S) * 256 * 2
-    r1 = kernel_traffic(TOY_K3, 256, 256, "block_int32")
+    r1 = kernel_traffic(TOY_K3, 256, 256, "block")
     assert r1["decoded_bits"] == (256 - TOY_K3.S) * 256
 
 
 def test_kernel_traffic_ragged_mask_overhead():
-    """Ragged adds only the packed mask plane (1 byte per channel per
-    8-step group) on top of the block path — ~1.5% of decision traffic
-    at NS=64, so mixed-length batching is essentially free."""
+    """Ragged adds only the per-channel start/end/emit vectors (three
+    int32 per channel) on top of the block path, so mixed-length
+    batching is essentially free."""
     blk = kernel_traffic(NASA_K7, 2048, 2048, "block")
     rag = kernel_traffic(NASA_K7, 2048, 2048, "ragged")
-    gm = 2048 // 8 * 2048
-    assert rag["traceback_read_bytes"] == blk["traceback_read_bytes"] + gm
+    assert rag["traceback_read_bytes"] == blk["traceback_read_bytes"] + 12 * 2048
     assert rag["total_bytes"] - blk["total_bytes"] < blk["total_bytes"] * 0.05
 
 
@@ -74,8 +73,7 @@ def test_kernel_traffic_unknown_mode():
 
 def test_traffic_report_renders_all_modes():
     text = traffic_report(NASA_K7, 2048, 2054)
-    for mode in ("block", "block_int32", "block_soft", "ragged",
-                 "stream"):
+    for mode in ("block", "block_soft", "ragged", "stream"):
         # row-anchored: a bare substring check would let "block" ride
         # on the "block_int32" row's text.
         assert re.search(rf"^\s*{mode}\b", text, re.M), mode

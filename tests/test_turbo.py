@@ -5,7 +5,8 @@ match), QPP properties, and iterative decoding gain over AWGN.
 import numpy as np
 import pytest
 
-from convolutionalencdec_tpu.ops.turbo import (
+from convolutionalencdec.ops import lte
+from convolutionalencdec.ops.turbo import (
     QPP_TABLE, RscSpec, _rsc_impulse, qpp_interleaver,
     rsc_encode_batch, rsc_encode_batch_np, rsc_encode_np, rsc_maxlogmap,
     rsc_step, rsc_tables, turbo_decode, turbo_decode_batch,
@@ -200,3 +201,74 @@ def test_turbo_decode_noiseless_and_gain():
     one, _ = turbo_decode(RSC, *[a[0] for a in args],
                           perm=tuple(int(p) for p in pi), n_iters=6)
     assert (np.asarray(one) == np.asarray(b6)[0]).all()
+
+
+def test_early_termination_crc():
+    """CRC-gated early exit: clean batch stops after one iteration with
+    every block latched correct; noisy batch never false-accepts."""
+    from convolutionalencdec.ops.crc import CRC24B, crc_append
+    rng = np.random.default_rng(41)
+    B, L = 8, 40
+    payload = rng.integers(0, 2, (B, L - 24), dtype=np.uint8)
+    msgs = np.asarray(crc_append(CRC24B, payload))
+    E = 3 * (L + 4)
+    tx = np.asarray(lte.lte_turbo_encode_batch(msgs, E))
+    q = ((1 - 2 * tx.astype(np.int32)) * 8).astype(np.int32)
+    bits, _, ok, iters = lte.lte_turbo_decode_early(q, L)
+    assert int(iters) == 1
+    assert np.asarray(ok).all()
+    np.testing.assert_array_equal(np.asarray(bits), msgs)
+    # heavy noise: whatever passes must be RIGHT (no false accepts),
+    # and passed blocks' outputs are latched (match the message).
+    flip = rng.random(q.shape) < 0.12
+    qn = np.where(flip, -q, q)
+    bits, _, ok, iters = lte.lte_turbo_decode_early(qn, L, max_iters=4)
+    ok = np.asarray(ok)
+    bad = (np.asarray(bits) != msgs).any(1)
+    assert not (ok & bad).any()
+    assert 1 <= int(iters) <= 4
+
+
+def test_early_termination_1d_promotion():
+    """A 1-D llrs input promotes to a batch of one (mirroring
+    lte_turbo_decode)."""
+    from convolutionalencdec.ops.crc import CRC24B, crc_append
+    rng = np.random.default_rng(43)
+    L = 40
+    payload = rng.integers(0, 2, L - 24, dtype=np.uint8)
+    msg = np.asarray(crc_append(CRC24B, payload))
+    E = 3 * (L + 4)
+    tx = np.asarray(lte.lte_turbo_encode_batch(msg[None], E))[0]
+    q = ((1 - 2 * tx.astype(np.int32)) * 8).astype(np.int32)
+    bits, lapp, ok, iters = lte.lte_turbo_decode_early(q, L)
+    assert bits.shape == (L,) and lapp.shape == (L,) and ok.shape == ()
+    assert bool(ok) and int(iters) == 1
+    np.testing.assert_array_equal(np.asarray(bits), msg)
+    bb, ll, bok, _ = lte.lte_turbo_decode_early(q[None], L)
+    np.testing.assert_array_equal(np.asarray(bb)[0], np.asarray(bits))
+    np.testing.assert_array_equal(np.asarray(ll)[0], np.asarray(lapp))
+    assert bool(np.asarray(bok)[0]) == bool(ok)
+
+
+def test_early_termination_unlatched_blocks_match_fixed_count():
+    """Blocks that never pass their CRC decode exactly as the
+    fixed-count decoder after `iters_used` iterations."""
+    from convolutionalencdec.ops.crc import CRC24B, crc_append
+    from convolutionalencdec.ops.turbo import turbo_decode_batch_early
+    rng = np.random.default_rng(47)
+    B, L = 6, 40
+    payload = rng.integers(0, 2, (B, L - 24), dtype=np.uint8)
+    msgs = np.asarray(crc_append(CRC24B, payload))
+    tx = np.asarray(lte.lte_turbo_encode_batch(msgs, 3 * (L + 4)))
+    q = ((1 - 2 * tx.astype(np.int32)) * 4).astype(np.int32)
+    q = np.where(rng.random(q.shape) < 0.3, -q, q)     # hopeless channel
+    fields = lte.turbo_demux_tails(lte.derate_match_turbo(
+        q, L + 4, qmax=31, filler_llr=31))
+    perm = tuple(int(p) for p in lte.lte_qpp(L))
+    bits, lapp, ok, iters = turbo_decode_batch_early(
+        RSC, *fields, perm, CRC24B, 3)
+    ok = np.asarray(ok)
+    assert int(iters) == 3 and not ok.all()
+    wb, wl = turbo_decode_batch(RSC, *fields, perm, 3)
+    np.testing.assert_array_equal(np.asarray(bits)[~ok], np.asarray(wb)[~ok])
+    np.testing.assert_array_equal(np.asarray(lapp)[~ok], np.asarray(wl)[~ok])

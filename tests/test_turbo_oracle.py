@@ -2,15 +2,15 @@
 chain — the MATLAB-oracle pattern (SURVEY.md §4 item 4) applied to the
 turbo code: an independently written implementation must agree
 bit-for-bit on identical inputs, and its measured BER pins the
-statistical acceptance constants used by the TPU sweep."""
+statistical acceptance constants (`harness.curve.TURBO_EXPECTED`)."""
 
 import numpy as np
 import pytest
 
-from convolutionalencdec_tpu.ops.turbo import (
+from convolutionalencdec.ops.turbo import (
     RscSpec, qpp_interleaver, turbo_decode, turbo_encode_np)
 
-native = pytest.importorskip("convolutionalencdec_tpu.native")
+native = pytest.importorskip("convolutionalencdec.native")
 
 RSC = RscSpec()
 
@@ -51,7 +51,7 @@ def test_oracle_decode_clamp_binding_bit_identical():
     """LA_CLAMP is part of the algorithm: at LLR magnitudes large
     enough that the extrinsic exchange actually saturates the clamp,
     the C++ oracle and the JAX scan must still agree bit-for-bit."""
-    from convolutionalencdec_tpu.ops.turbo import (
+    from convolutionalencdec.ops.turbo import (
         LA_CLAMP, rsc_maxlogmap)
     rng = np.random.default_rng(17)
     L = 104

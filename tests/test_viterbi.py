@@ -12,14 +12,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from convolutionalencdec_tpu import (
+from convolutionalencdec import (
     NASA_K7, NASA_K7_R13, REF_K7, TOY_K3, K5_23_35,
     encode_bits, encode_bytes,
     viterbi_decode, viterbi_decode_stream, viterbi_forward,
     viterbi_forward_butterfly, traceback_terminated,
 )
-from convolutionalencdec_tpu.ops.bits import pack_bits
-from convolutionalencdec_tpu.ops.viterbi import hard_step_metrics
+from convolutionalencdec.ops.bits import pack_bits
+from convolutionalencdec.ops.viterbi import hard_step_metrics
 
 # handTraced.c:55 — encoded 0x68 with 2 injected bit errors (segments 0, 2).
 CORRUPTED = np.array([0b01, 0b11, 0b01, 0b10, 0b10, 0b11, 0b01, 0b00,
@@ -119,7 +119,7 @@ def test_batched_decode_vmap():
 def test_generic_k2_code_roundtrip():
     """Exercise k=2 (the generic decoder path the butterfly can't take).
     A k=2 rate-2/3 code: 4 edges per state."""
-    from convolutionalencdec_tpu import CodeSpec
+    from convolutionalencdec import CodeSpec
     spec = CodeSpec(K=3, k=2, g=(0o17, 0o06, 0o13))
     rng = np.random.default_rng(37)
     msg = rng.integers(0, 2, 64, dtype=np.uint8)

@@ -1,0 +1,9 @@
+"""CPU tests of the benchmark: `JAX_PLATFORMS=cpu python -m pytest benchmark/tests -q`."""
+
+import os
+import sys
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))))
